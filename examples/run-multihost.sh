@@ -1,7 +1,7 @@
 #!/bin/bash
 # Multi-host alignment: shard the k-mer index over N worker processes
 # (jax.distributed) and merge their SAM windows.  Each worker holds ONLY
-# its k-mer range (RoutedSeedIndex, basal_tpu/parallel/multihost.py) and
+# its k-mer range (RoutedSeedIndex, basal_jax/parallel/multihost.py) and
 # fetches foreign-range entries per batch over batched collective rounds;
 # the merged output is byte-identical to a single-host run
 # (tests/test_multihost.py proves it on every suite run).
@@ -9,6 +9,10 @@
 # On one machine this simulates N hosts with N local processes; on real
 # multi-host hardware, start one worker per host with PID = host index and
 # point COORD at host 0 (jax.distributed semantics are identical).
+#
+# Workers start with local_devices: 1, which pins each to jax's CPU backend
+# (parallel/multihost.py init_multihost): N workers never contend for a
+# GPU, and each aligns on the host path.
 #
 # Usage: examples/run-multihost.sh REF.fa READS.fq N_READS [NPROCS] [OUT]
 #        READS2=mate2.fq examples/run-multihost.sh ...   # paired-end

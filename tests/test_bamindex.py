@@ -14,9 +14,9 @@ from pathlib import Path
 
 import pytest
 
-from basal_tpu.toolkit.bamindex import (build_index, fetch_sam_lines,
+from basal_jax.toolkit.bamindex import (build_index, fetch_sam_lines,
                                         load_index)
-from basal_tpu.toolkit.bamio import BamWriter
+from basal_jax.toolkit.bamio import BamWriter
 
 SAMTOOLS = Path(__file__).resolve().parents[1] / ".oracle" / "samtools"
 
@@ -139,7 +139,7 @@ def test_region_query_seeks_not_scans(tmp_path):
 def test_bamutil_streaming_sort_and_view(tmp_path):
     """External spill-merge sort == in-memory stable sort, streaming view
     filters, index subcommand, region view via CLI."""
-    from basal_tpu.toolkit import bamutil
+    from basal_jax.toolkit import bamutil
     rng = random.Random(45)
     # unsorted SAM input
     lines = ["@HD\tVN:1.0"] + [f"@SQ\tSN:{nm}\tLN:{ln}" for nm, ln in REFS]
@@ -170,11 +170,11 @@ def test_avgmod_cram_unsupported_refused(tmp_path):
     """CRAM 3.0 now decodes natively (toolkit/cram.py); unsupported
     versions and CRAM 3.1 codecs must still refuse with a clear message
     instead of misparsing."""
-    from basal_tpu.toolkit.avgmod import iter_sam_lines
+    from basal_jax.toolkit.avgmod import iter_sam_lines
     p = tmp_path / "x.cram"
     p.write_bytes(b"CRAM\x04\x00" + b"\x00" * 20)  # future major version
     with pytest.raises(SystemExit, match="unsupported version"):
         list(iter_sam_lines(str(p)))
-    from basal_tpu.toolkit.cram import _decompress_block
+    from basal_jax.toolkit.cram import _decompress_block
     with pytest.raises(SystemExit, match="rans4x16"):
         _decompress_block(5, b"\x00", 1)

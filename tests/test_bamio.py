@@ -9,7 +9,7 @@ from test_differential_se import run_ours
 
 
 def test_bam_roundtrip(tmp_path, rng):
-    from basal_tpu.toolkit.bamio import BamWriter, decode_bam_to_sam
+    from basal_jax.toolkit.bamio import BamWriter, decode_bam_to_sam
     sam = ("@HD\tVN:1.0\n@SQ\tSN:chr1\tLN:5000\n"
            "r1\t0\tchr1\t100\t255\t50M\t*\t0\t0\t" + "A" * 50 + "\t" + "I" * 50 +
            "\tNM:i:2\tZS:Z:++\n"
@@ -54,7 +54,7 @@ def test_bam_input_matches_fastq_input(tmp_path, rng):
     make_ref(tmp_path / "ref.fa", [("chr1", g)])
     reads = convert_reads(rng, g, 30, 80, "C:T")
     make_fastq(tmp_path / "reads.fq", reads)
-    from basal_tpu.toolkit.bamio import BamWriter
+    from basal_jax.toolkit.bamio import BamWriter
     with BamWriter(str(tmp_path / "in.bam")) as bw:
         bw.write("@HD\tVN:1.0\n")
         for n, s in reads:
@@ -72,7 +72,7 @@ def test_bgzf_block_structure(tmp_path):
     and compare against what Python gzip (which ignores BC) decodes.
     Regression for the off-by-one that desynced htslib-style readers."""
     import gzip
-    from basal_tpu.toolkit.bamio import BgzfWriter, read_bgzf, BGZF_EOF
+    from basal_jax.toolkit.bamio import BgzfWriter, read_bgzf, BGZF_EOF
 
     payload = bytes(range(256)) * 700  # > one 0xF000 block
     p = tmp_path / "t.bgzf"
@@ -88,7 +88,7 @@ def test_bgzf_block_structure(tmp_path):
 def test_bgzf_parallel_matches_serial(tmp_path):
     """Block-parallel compression must write the exact bytes of the serial
     path (same chunking, same deflate parameters, FIFO order)."""
-    from basal_tpu.toolkit.bamio import BgzfWriter, read_bgzf
+    from basal_jax.toolkit.bamio import BgzfWriter, read_bgzf
 
     rng = __import__("random").Random(7)
     payload = bytes(rng.randrange(256) for _ in range(0xF000 * 5 + 1234))

@@ -2,9 +2,9 @@
 
 The blob entry derives the valid/lenmask planes on device and carries the
 strand plane in loc bit 31; these tests pin its equality to the 3-transfer
-packed path at the DeviceContext level (the production builder) and at the
-kernel level (pallas interpret mode), including reads WITH Ns (exception
-validity rows) and mixed read lengths (derived lenmask).
+packed path at the DeviceContext level (the production builder), including
+reads WITH Ns (exception validity rows) and mixed read lengths (derived
+lenmask).
 """
 
 import numpy as np
@@ -12,13 +12,13 @@ import pytest
 
 
 def _make_case(tmp_path, rng, rule, gap, nt3=False, n_mis=False):
-    from basal_tpu.align.candidates import SeedScheduler, build_candidates
-    from basal_tpu.align.rng import MyRand
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.reads.encode import encode_batch
-    from basal_tpu.reads.io import ReadRec
+    from basal_jax.align.candidates import SeedScheduler, build_candidates
+    from basal_jax.align.rng import MyRand
+    from basal_jax.config import AlignParams
+    from basal_jax.index.reference import load_reference
+    from basal_jax.index.seedindex import build_index
+    from basal_jax.reads.encode import encode_batch
+    from basal_jax.reads.io import ReadRec
     from conftest import make_ref, random_genome
 
     g = random_genome(rng, 9000)
@@ -55,10 +55,9 @@ def _make_case(tmp_path, rng, rule, gap, nt3=False, n_mis=False):
 
 
 def _ctx_extend(p, ref, enc, table, use_blob):
-    from basal_tpu.align.pipeline import DeviceContext
+    from basal_jax.align.pipeline import DeviceContext
     dev = DeviceContext(ref, p)
     dev.use_blob = use_blob
-    assert not dev.use_pallas  # CPU backend in tests
     return dev.extend(enc, table.loc.astype(np.int32),
                       table.plane.astype(np.int32), table.row)
 
@@ -85,53 +84,10 @@ def test_blob_matches_packed_devicecontext(tmp_path, rng, rule, gap, nt3,
         assert np.array_equal(np.asarray(a), np.asarray(b)), name
 
 
-@pytest.mark.parametrize("rule,gap", [("C:T", 0), ("A:CGT", 0), ("T:-", 3)])
-def test_blob_pallas_interpret_matches_xla(tmp_path, rng, rule, gap):
-    """The pallas blob entries (production on TPU) == XLA blob entry,
-    exercised in interpret mode on CPU with the production blob builder."""
-    import jax.numpy as jnp
-    from basal_tpu.align.pipeline import DeviceContext
-    from basal_tpu.ops.extend import extend_kernel_blob
-    from basal_tpu.ops.extend_pallas import (TILE_C,
-                                             extend_counts_pallas_blob,
-                                             extend_gap_pallas_blob)
-
-    p, ref, enc, table = _make_case(tmp_path, rng, rule, gap)
-    dev = DeviceContext(ref, p)
-    loc = table.loc.astype(np.int32)
-    plane = table.plane.astype(np.int32)
-    row = table.row
-    C = loc.shape[0]
-    cpad = max(TILE_C, 1 << (C - 1).bit_length())
-    pad = cpad - C
-    used, first_idx = np.unique(row, return_index=True)
-    U = len(used)
-    upad = max(512, 1 << max(U - 1, 1).bit_length()) - U
-    roff = np.full(U + 1 + upad, C, np.int32)
-    roff[:U] = first_idx
-    Upad = U + upad
-    blob, epad = dev._build_blob(enc, loc, plane, used, roff, pad, upad)
-    ref32 = jnp.asarray(ref.ref32.reshape(-1))
-    nw = ref.ref32.shape[1]
-    want = extend_kernel_blob(ref32, blob, mode=dev.mode, gap=gap, W=enc.W,
-                              nw=nw, C=cpad, U=Upad, E=epad)
-    if gap == 0:
-        got = extend_counts_pallas_blob(ref32, blob, mode=dev.mode, W=enc.W,
-                                        nw=nw, C=cpad, U=Upad, E=epad,
-                                        interpret=True)
-        assert np.array_equal(np.asarray(got)[:C], np.asarray(want)[:C])
-    else:
-        got = extend_gap_pallas_blob(ref32, blob, mode=dev.mode, gap=gap,
-                                     W=enc.W, nw=nw, C=cpad, U=Upad, E=epad,
-                                     interpret=True)
-        for name, a, b in zip(("counts", "pos0", "pos1"), got, want):
-            assert np.array_equal(np.asarray(a)[:C], np.asarray(b)[:C]), name
-
-
 def test_blob_fallback_on_many_n_rows(tmp_path, rng):
     """> 4094 exception rows -> _extend_blob returns None and the packed
     path takes over (rowmeta exception field is 12 bits)."""
-    from basal_tpu.align.pipeline import DeviceContext
+    from basal_jax.align.pipeline import DeviceContext
     p, ref, enc, table = _make_case(tmp_path, rng, "C:T", 0)
     dev = DeviceContext(ref, p)
     enc._hasn_cache = np.ones(enc.base.shape[0], bool)  # force E == U > cap?

@@ -10,14 +10,14 @@ from test_differential_pe import pe_reads
 
 
 def test_config5(tmp_path, rng):
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.index.sharded import build_sharded_index
-    from basal_tpu.pairs.pipeline import PairEndAligner
-    from basal_tpu.reads.io import open_reads
-    from basal_tpu.toolkit.bamio import BamWriter, decode_bam_to_sam
-    from basal_tpu.align.sam import sam_header
+    from basal_jax.config import AlignParams
+    from basal_jax.index.reference import load_reference
+    from basal_jax.index.seedindex import build_index
+    from basal_jax.index.sharded import build_sharded_index
+    from basal_jax.pairs.pipeline import PairEndAligner
+    from basal_jax.reads.io import open_reads
+    from basal_jax.toolkit.bamio import BamWriter, decode_bam_to_sam
+    from basal_jax.align.sam import sam_header
 
     # "transcriptome": many short sequences
     seqs = [(f"ENST{i:08d}", random_genome(rng, rng.randrange(500, 2500)))

@@ -15,7 +15,7 @@ import random
 
 import pytest
 
-from basal_tpu.toolkit import cram
+from basal_jax.toolkit import cram
 
 from conftest import (convert_reads, have_oracle, make_fastq, make_ref,
                       random_genome, run_oracle)
@@ -168,11 +168,11 @@ def test_avgmod_cram_parity(tmp_path, rng, method):
                     {"chr1": g.upper()}, method=method,
                     records_per_slice=37)
 
-    from basal_tpu.toolkit import bamutil
+    from basal_jax.toolkit import bamutil
     bamutil.sort(str(tmp_path / "aln.sam"), str(tmp_path / "aln.bam"))
 
     import os
-    from basal_tpu.toolkit.cli import main
+    from basal_jax.toolkit.cli import main
     old = os.getcwd()
     os.chdir(tmp_path)
     try:

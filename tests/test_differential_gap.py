@@ -99,7 +99,7 @@ def test_bidseq_host_eval_repeats(tmp_path, rng, monkeypatch):
     candidate-volume worst case) must stay byte-identical to the oracle —
     counts AND the pos0/pos1 mismatch-position lists the gapped replay
     consumes come from the C++ evaluator instead of the device kernel."""
-    monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "1")
+    monkeypatch.setenv("BASAL_HOST_EVAL", "1")
     g = (random_genome(rng, 6000) + random_genome(rng, 271) * 10
          + random_genome(rng, 3000))
     reads = deletion_reads(rng, g, 60, 100)
@@ -108,7 +108,7 @@ def test_bidseq_host_eval_repeats(tmp_path, rng, monkeypatch):
 
 
 def test_gap_host_eval_insertions(tmp_path, rng, monkeypatch):
-    monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "1")
+    monkeypatch.setenv("BASAL_HOST_EVAL", "1")
     g = random_genome(rng, 9000)
     reads = insertion_reads(rng, g, 40, 100)
     diff_gap(tmp_path, rng, reads, "C:T", ["-S", "17", "-g", "3", "-u"], g)

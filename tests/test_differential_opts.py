@@ -177,12 +177,12 @@ def test_threaded_equals_serial(tmp_path, rng):
             "-S", "13", "-u"]
     r = run_oracle(base + ["-o", "oracle.sam", "-p", "1"], tmp_path)
     assert r.returncode == 0, r.stderr
-    import basal_tpu.config as cfg
+    import basal_jax.config as cfg
     old_batch = cfg.BATCH_NUM
     try:
         serial = run_ours(base + ["-p", "1"], tmp_path)
         # force multiple small batches through the pool
-        import basal_tpu.reads.io  # noqa
+        import basal_jax.reads.io  # noqa
         threaded = run_ours(base + ["-p", "3", "-E", "120"], tmp_path)
     finally:
         pass

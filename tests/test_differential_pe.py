@@ -109,5 +109,5 @@ def test_pe_gapped_host_eval(tmp_path, rng, monkeypatch):
     """PE gapped host lane: forced host evaluation must match the oracle
     (the PE device branch now routes waves through
     host_eval_candidates_gap when placement picks the host)."""
-    monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "1")
+    monkeypatch.setenv("BASAL_HOST_EVAL", "1")
     diff_pe(tmp_path, rng, "C:T", ["-S", "6", "-g", "2", "-u"], n=25)

@@ -122,9 +122,9 @@ def test_rrbs_pe(tmp_path, rng):
 
 
 def test_rrbs_pe_python_twin(tmp_path, rng, monkeypatch):
-    """PE RRBS with BASAL_TPU_NO_NATIVE=1: the pure-Python fragment build +
+    """PE RRBS with BASAL_NO_NATIVE=1: the pure-Python fragment build +
     lockstep remains the golden twin now that the native path
     (bt_build_candidates_rrbs + bt_replay_pe rr args + ZP/ZL PE formatter)
     is the default."""
-    monkeypatch.setenv("BASAL_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("BASAL_NO_NATIVE", "1")
     test_rrbs_pe(tmp_path, rng)

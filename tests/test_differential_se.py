@@ -18,7 +18,7 @@ pytestmark = pytest.mark.skipif(not have_oracle(), reason="oracle not built")
 
 
 def run_ours(argv, cwd):
-    from basal_tpu import cli
+    from basal_jax import cli
     import os
     old = os.getcwd()
     os.chdir(cwd)
@@ -140,7 +140,7 @@ def test_seed12_interval2(tmp_path, rng):
 
 
 def test_python_replay_path(tmp_path, rng):
-    """BASAL_TPU_NO_NATIVE=1 forces the pure-Python scheduler/replay twins;
+    """BASAL_NO_NATIVE=1 forces the pure-Python scheduler/replay twins;
     output must still match the oracle byte-for-byte."""
     import os
     import subprocess
@@ -156,12 +156,12 @@ def test_python_replay_path(tmp_path, rng):
             "-S", "17", "-u"]
     r = run_oracle(base + ["-o", "oracle.sam"], diffdir)
     assert r.returncode == 0, r.stderr
-    env = {**os.environ, "BASAL_TPU_NO_NATIVE": "1", "JAX_PLATFORMS": "cpu",
+    env = {**os.environ, "BASAL_NO_NATIVE": "1", "JAX_PLATFORMS": "cpu",
            "PYTHONPATH": str(Path(__file__).resolve().parents[1])}
     rr = subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
-         "from basal_tpu import cli; cli.main("
+         "from basal_jax import cli; cli.main("
          + repr(base + ["-o", "ours.sam"]) + ")"],
         cwd=diffdir, env=env, capture_output=True, text=True, timeout=300)
     assert rr.returncode == 0, rr.stderr[-2000:]
@@ -170,7 +170,7 @@ def test_python_replay_path(tmp_path, rng):
 
 
 def test_host_eval_path(tmp_path, rng):
-    """BASAL_TPU_HOST_EVAL=1 (C++ SIMD candidate evaluation) must match the
+    """BASAL_HOST_EVAL=1 (C++ SIMD candidate evaluation) must match the
     oracle exactly, same as the device path."""
     import os
     seqs = [("chrH", random_genome(rng, 6000))]
@@ -182,16 +182,16 @@ def test_host_eval_path(tmp_path, rng):
             "-V", "0", "-S", "23", "-u"]
     r = run_oracle(base + ["-o", "oracle.sam"], tmp_path)
     assert r.returncode == 0, r.stderr
-    os.environ["BASAL_TPU_HOST_EVAL"] = "1"
+    os.environ["BASAL_HOST_EVAL"] = "1"
     try:
         ours = run_ours(base, tmp_path)
     finally:
-        del os.environ["BASAL_TPU_HOST_EVAL"]
+        del os.environ["BASAL_HOST_EVAL"]
     assert norm_sam(ours) == norm_sam((tmp_path / "oracle.sam").read_text())
 
 
 def test_device_eval_path(tmp_path, rng):
-    """BASAL_TPU_HOST_EVAL=0 forces every wave through the device (XLA)
+    """BASAL_HOST_EVAL=0 forces every wave through the device (XLA)
     extend kernel — the accelerator differential path, exercised explicitly
     now that auto mode routes to the host evaluator on a CPU backend."""
     import os
@@ -204,9 +204,9 @@ def test_device_eval_path(tmp_path, rng):
             "-V", "0", "-S", "29", "-u"]
     r = run_oracle(base + ["-o", "oracle.sam"], tmp_path)
     assert r.returncode == 0, r.stderr
-    os.environ["BASAL_TPU_HOST_EVAL"] = "0"
+    os.environ["BASAL_HOST_EVAL"] = "0"
     try:
         ours = run_ours(base, tmp_path)
     finally:
-        del os.environ["BASAL_TPU_HOST_EVAL"]
+        del os.environ["BASAL_HOST_EVAL"]
     assert norm_sam(ours) == norm_sam((tmp_path / "oracle.sam").read_text())

@@ -9,9 +9,9 @@ import random
 import numpy as np
 import pytest
 
-from basal_tpu.config import AlignParams
-from basal_tpu.reads import encode as E
-from basal_tpu.reads.io import ReadRec
+from basal_jax.config import AlignParams
+from basal_jax.reads import encode as E
+from basal_jax.reads.io import ReadRec
 
 FIELDS = ("base", "valid", "mread", "lenmask", "seedval", "seed_has_n",
           "map_len", "n_offsets", "filtered", "n_count", "read_max_snp")
@@ -36,20 +36,20 @@ def _reads(seed, exotic):
 @pytest.mark.parametrize("conv", ["C:T", "A:G", "T:-", "A:CGT"])
 @pytest.mark.parametrize("exotic", [False, True])
 def test_native_encode_equivalence(conv, exotic):
-    from basal_tpu.native import get_lib
+    from basal_jax.native import get_lib
     if get_lib() is None:
         pytest.skip("native engine unavailable")
     p = AlignParams(conversion=conv, randseed=1, verbose_level=0)
-    old = os.environ.pop("BASAL_TPU_NO_NATIVE", None)
+    old = os.environ.pop("BASAL_NO_NATIVE", None)
     try:
         a = E.encode_batch(p, _reads(42, exotic))
-        os.environ["BASAL_TPU_NO_NATIVE"] = "1"
+        os.environ["BASAL_NO_NATIVE"] = "1"
         b = E.encode_batch(p, _reads(42, exotic))
     finally:
         if old is None:
-            os.environ.pop("BASAL_TPU_NO_NATIVE", None)
+            os.environ.pop("BASAL_NO_NATIVE", None)
         else:
-            os.environ["BASAL_TPU_NO_NATIVE"] = old
+            os.environ["BASAL_NO_NATIVE"] = old
     for f in FIELDS:
         assert np.array_equal(getattr(a, f), getattr(b, f)), (conv, f)
 
@@ -59,14 +59,14 @@ def test_native_encode_seed_sizes(ss, monkeypatch):
     """The double-and-add window-hash build is seed-size-generic (every -s
     10..16 takes a different double/add sequence); pin native == numpy for
     each legal seed size."""
-    from basal_tpu.native import get_lib
+    from basal_jax.native import get_lib
     if get_lib() is None:
         pytest.skip("native engine unavailable")
     p = AlignParams(conversion="C:T", randseed=1, verbose_level=0,
                     seed_size=ss)
-    monkeypatch.delenv("BASAL_TPU_NO_NATIVE", raising=False)
+    monkeypatch.delenv("BASAL_NO_NATIVE", raising=False)
     a = E.encode_batch(p, _reads(ss, True))
-    monkeypatch.setenv("BASAL_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("BASAL_NO_NATIVE", "1")
     b = E.encode_batch(p, _reads(ss, True))
     for f in FIELDS:
         assert np.array_equal(getattr(a, f), getattr(b, f)), (ss, f)

@@ -12,12 +12,12 @@ import pytest
 
 from conftest import make_ref, make_fastq, random_genome, convert_reads
 
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import load_reference
-from basal_tpu.index.seedindex import build_index
-from basal_tpu.align.pipeline import SingleEndAligner
-from basal_tpu.reads.encode import encode_batch
-from basal_tpu.reads.io import open_reads, RawBatch
+from basal_jax.config import AlignParams
+from basal_jax.index.reference import load_reference
+from basal_jax.index.seedindex import build_index
+from basal_jax.align.pipeline import SingleEndAligner
+from basal_jax.reads.encode import encode_batch
+from basal_jax.reads.io import open_reads, RawBatch
 
 
 @pytest.mark.parametrize("rr,out_ref,out_unmap", [
@@ -27,7 +27,7 @@ from basal_tpu.reads.io import open_reads, RawBatch
     (0, False, True),
 ])
 def test_format_se_threaded_bitexact(tmp_path, rr, out_ref, out_unmap):
-    from basal_tpu.native import get_lib, NativeFormatter
+    from basal_jax.native import get_lib, NativeFormatter
     if get_lib() is None:
         pytest.skip("native engine unavailable")
     rng = random.Random(1234 + rr)
@@ -75,7 +75,7 @@ def test_format_se_threaded_bitexact(tmp_path, rr, out_ref, out_unmap):
 def test_format_pe_threaded_bitexact(tmp_path, monkeypatch):
     """Full PE CLI run with the formatter forced serial vs threaded must be
     byte-identical (proper pairs, -r 2 fan-out, orphans, unmapped mates)."""
-    from basal_tpu import native as N
+    from basal_jax import native as N
     if N.get_lib() is None:
         pytest.skip("native engine unavailable")
     from test_differential_pe import pe_reads

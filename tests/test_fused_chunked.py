@@ -1,4 +1,4 @@
-"""Cache-blocked fused host path (BASAL_TPU_FUSED_CHUNK): chunked encode +
+"""Cache-blocked fused host path (BASAL_FUSED_CHUNK): chunked encode +
 align must be byte-identical to the unchunked fused pass — chunking is
 equivalent to running smaller batches, and every cross-read state (sticky
 start offsets, stale seed buffers, read indices) carries serially.  Mixed
@@ -10,9 +10,9 @@ import random
 import numpy as np
 import pytest
 
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import load_reference
-from basal_tpu.index.seedindex import build_index
+from basal_jax.config import AlignParams
+from basal_jax.index.reference import load_reference
+from basal_jax.index.seedindex import build_index
 from conftest import make_fastq, make_ref, random_genome
 
 N = 20_000
@@ -36,10 +36,10 @@ def _data(tmp_path, mixed):
 
 
 def _run(tmp_path, chunk, monkeypatch):
-    from basal_tpu.align.pipeline import SingleEndAligner
-    from basal_tpu.reads.io import open_reads
-    monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "1")
-    monkeypatch.setenv("BASAL_TPU_FUSED_CHUNK", str(chunk))
+    from basal_jax.align.pipeline import SingleEndAligner
+    from basal_jax.reads.io import open_reads
+    monkeypatch.setenv("BASAL_HOST_EVAL", "1")
+    monkeypatch.setenv("BASAL_FUSED_CHUNK", str(chunk))
     p = AlignParams(conversion="A:G", randseed=3, verbose_level=0,
                     out_unmap=True)
     ref = load_reference(str(tmp_path / "ref.fa"), p)

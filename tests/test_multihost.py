@@ -74,15 +74,15 @@ def _fixture(tmp_path, rng, n_reads, genome_bp=250_000, readlen=100):
 def _single_process_sam(tmp_path, params_kw):
     """Reference output: the normal in-process single-host run (dense
     index, same params)."""
-    from basal_tpu.align.pipeline import run_single_end
-    from basal_tpu.config import AlignParams
+    from basal_jax.align.pipeline import run_single_end
+    from basal_jax.config import AlignParams
     import io
 
     params = AlignParams(**params_kw)
     buf = io.BytesIO()
     run_single_end(params, str(tmp_path / "ref.fa"),
                    str(tmp_path / "reads.fq"), out_fh=buf,
-                   command_line="basal-tpu")
+                   command_line="basal-jax")
     return buf.getvalue().decode("latin1")
 
 
@@ -191,13 +191,13 @@ def test_two_process_pair_end_equals_single(tmp_path, rng):
     merged = ((tmp_path / "out_p0.sam").read_text()
               + (tmp_path / "out_p1.sam").read_text())
 
-    from basal_tpu.pairs.pipeline import run_pair_end
-    from basal_tpu.config import AlignParams
+    from basal_jax.pairs.pipeline import run_pair_end
+    from basal_jax.config import AlignParams
     import io
     buf = io.BytesIO()
     run_pair_end(AlignParams(**params_kw), str(tmp_path / "ref.fa"),
                  str(tmp_path / "reads_1.fq"), str(tmp_path / "reads_2.fq"),
-                 out_fh=buf, command_line="basal-tpu")
+                 out_fh=buf, command_line="basal-jax")
     assert merged == buf.getvalue().decode("latin1")
 
     st0 = json.loads((tmp_path / "stats_p0.json").read_text())
@@ -208,12 +208,12 @@ def test_routed_index_matches_dense_single_process(tmp_path, rng):
     """RoutedSeedIndex in 1-process mode must fill entries value-identical
     to the dense index for every queried k-mer (fast in-process check of
     the CSR slice/fill machinery, no subprocess spawn)."""
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.parallel.multihost import RoutedSeedIndex
-    from basal_tpu.reads.encode import encode_batch
-    from basal_tpu.reads.io import open_reads
+    from basal_jax.config import AlignParams
+    from basal_jax.index.reference import load_reference
+    from basal_jax.index.seedindex import build_index
+    from basal_jax.parallel.multihost import RoutedSeedIndex
+    from basal_jax.reads.encode import encode_batch
+    from basal_jax.reads.io import open_reads
 
     _fixture(tmp_path, rng, 400, genome_bp=120_000)
     p = AlignParams(conversion="A:G", randseed=7)

@@ -53,14 +53,14 @@ def test_overlapped_ladder_waves(tmp_path):
     # two-deep submit/finish overlap in run_single_end interleaves several
     # batches' builds and waves
     import os
-    from basal_tpu import cli
-    from basal_tpu.align.pipeline import SingleEndAligner
-    from basal_tpu.config import AlignParams
+    from basal_jax import cli
+    from basal_jax.align.pipeline import SingleEndAligner
+    from basal_jax.config import AlignParams
 
     old_eager = SingleEndAligner.EAGER_MAX_CANDS
     SingleEndAligner.EAGER_MAX_CANDS = 1
     try:
-        from basal_tpu.align.pipeline import run_single_end
+        from basal_jax.align.pipeline import run_single_end
         p = AlignParams(conversion="A:G", randseed=9, out_unmap=True,
                         verbose_level=0, batch_reads=64)
         out = io.BytesIO()
@@ -90,8 +90,8 @@ def test_pe_threaded_equals_serial(tmp_path):
     make_fastq(tmp_path / "r2.fq", r2)
 
     import os
-    from basal_tpu.config import AlignParams
-    from basal_tpu.pairs.pipeline import run_pair_end
+    from basal_jax.config import AlignParams
+    from basal_jax.pairs.pipeline import run_pair_end
 
     outs = []
     cwd = os.getcwd()

@@ -18,10 +18,10 @@ pytestmark = pytest.mark.skipif(not have_oracle(), reason="oracle not built")
 
 
 def test_pe_volume_split_byte_identical(tmp_path, rng, monkeypatch):
-    from basal_tpu.pairs import pipeline as pp
+    from basal_jax.pairs import pipeline as pp
     # the volume guard protects DEVICE dispatch (host eval bounds its own
     # volume at visit time); force device placement so the cap is live
-    monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "0")
+    monkeypatch.setenv("BASAL_HOST_EVAL", "0")
     # repetitive genome -> real candidate volume; cap forces >= 2 sub-chunks
     core = random_genome(rng, 800)
     g = core * 6 + random_genome(rng, 5000)
@@ -54,7 +54,7 @@ def test_pe_volume_split_byte_identical(tmp_path, rng, monkeypatch):
 def test_pe_split_mixed_lengths_stale_state(tmp_path, rng, monkeypatch):
     """The probe->restore->re-run cycle must restore the stale seed buffers
     too: mixed-length mates make the re-run consume them."""
-    from basal_tpu.pairs import pipeline as pp
+    from basal_jax.pairs import pipeline as pp
     core = random_genome(rng, 600)
     g = core * 5 + random_genome(rng, 4000)
     make_ref(tmp_path / "ref.fa", [("chrP", g)])
@@ -70,7 +70,7 @@ def test_pe_split_mixed_lengths_stale_state(tmp_path, rng, monkeypatch):
             "-V", "0", "-S", "3"]
     r = run_oracle(base + ["-o", "oracle.sam"], tmp_path)
     assert r.returncode == 0, r.stderr
-    monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "0")
+    monkeypatch.setenv("BASAL_HOST_EVAL", "0")
     monkeypatch.setattr(pp.PairEndAligner, "MAX_BATCH_CANDS", 1500)
     ours = run_ours(base, tmp_path)
     got = norm_sam(ours)

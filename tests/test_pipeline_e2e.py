@@ -54,7 +54,7 @@ def test_etam_pipeline(tmp_path, rng):
            tmp_path)
     assert r.returncode == 0, r.stderr[-3000:]
 
-    from basal_tpu.toolkit.bamio import decode_bam_to_sam
+    from basal_jax.toolkit.bamio import decode_bam_to_sam
     merged = decode_bam_to_sam(str(tmp_path / "smp.merge.sorted.bam"))
     recs = [l.split("\t") for l in merged.splitlines()
             if l and not l.startswith("@")]

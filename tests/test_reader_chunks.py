@@ -6,8 +6,8 @@ across chunk boundaries (the carry path)."""
 import numpy as np
 import pytest
 
-from basal_tpu.config import AlignParams
-from basal_tpu.reads.io import RawFastqReader
+from basal_jax.config import AlignParams
+from basal_jax.reads.io import RawFastqReader
 
 
 def _write_fastq(path, n, readlen=60):

@@ -1,6 +1,6 @@
 """Pins the vectorized build_rrbs_index (searchsorted fragment scans +
 zeros_mt CSR tables) against the exact scalar fallback
-(BASAL_TPU_RRBS_SCALAR=1), and zeros_mt against np.zeros."""
+(BASAL_RRBS_SCALAR=1), and zeros_mt against np.zeros."""
 
 import os
 import random
@@ -9,10 +9,10 @@ import numpy as np
 import pytest
 
 from conftest import make_ref
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import load_reference
-from basal_tpu.index.rrbs import build_rrbs_index
-from basal_tpu.native import zeros_mt
+from basal_jax.config import AlignParams
+from basal_jax.index.reference import load_reference
+from basal_jax.index.rrbs import build_rrbs_index
+from basal_jax.native import zeros_mt
 
 
 @pytest.mark.parametrize("n,dtype", [(7, np.int32), (1 << 21, np.int64),
@@ -50,9 +50,9 @@ def test_vec_equals_scalar(tmp_path, monkeypatch, seed, site, kw):
     params = AlignParams(conversion="C:T", digestion_site=site,
                          rrbs_flag=True, randseed=1, **kw)
     ref = load_reference(str(ref_fa), params)
-    monkeypatch.delenv("BASAL_TPU_RRBS_SCALAR", raising=False)
+    monkeypatch.delenv("BASAL_RRBS_SCALAR", raising=False)
     vec = build_rrbs_index(str(ref_fa), ref, params)
-    monkeypatch.setenv("BASAL_TPU_RRBS_SCALAR", "1")
+    monkeypatch.setenv("BASAL_RRBS_SCALAR", "1")
     sca = build_rrbs_index(str(ref_fa), ref, params)
     np.testing.assert_array_equal(vec.starts, sca.starts)
     np.testing.assert_array_equal(vec.chrmode, sca.chrmode)

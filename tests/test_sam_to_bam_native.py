@@ -10,7 +10,7 @@ from pathlib import Path
 
 import pytest
 
-from basal_tpu.native import get_lib
+from basal_jax.native import get_lib
 
 HEADER = "@HD\tVN:1.0\tSO:unsorted\n@SQ\tSN:chr1\tLN:100000\n@SQ\tSN:chr2\tLN:5000\n"
 
@@ -29,7 +29,7 @@ def _write_both(tmp_path, text, env_extra):
     out = tmp_path / ("nat.bam" if not env_extra else "py.bam")
     code = (
         "import sys; sys.path.insert(0, '/root/repo')\n"
-        "from basal_tpu.toolkit.bamio import BamWriter\n"
+        "from basal_jax.toolkit.bamio import BamWriter\n"
         f"w = BamWriter({str(out)!r})\n"
         f"w.write({text!r})\n"
         "w.close()\n")
@@ -46,7 +46,7 @@ def _write_both(tmp_path, text, env_extra):
 def test_edge_records_native_equals_python(tmp_path):
     text = HEADER + "\n".join(RECORDS) + "\n"
     nat = _write_both(tmp_path, text, {})
-    py = _write_both(tmp_path, text, {"BASAL_TPU_NO_NATIVE": "1"})
+    py = _write_both(tmp_path, text, {"BASAL_NO_NATIVE": "1"})
     assert nat == py
 
 
@@ -54,7 +54,7 @@ def test_edge_records_native_equals_python(tmp_path):
 def test_float_aux_punts_to_python(tmp_path):
     text = HEADER + RECORDS[0] + "\tXF:f:1.25\n" + RECORDS[1] + "\n"
     nat = _write_both(tmp_path, text, {})
-    py = _write_both(tmp_path, text, {"BASAL_TPU_NO_NATIVE": "1"})
+    py = _write_both(tmp_path, text, {"BASAL_NO_NATIVE": "1"})
     assert nat == py
 
 
@@ -65,11 +65,11 @@ def test_many_aux_fields_punt(tmp_path):
     aux = "\t".join(f"X{chr(65 + i % 26)}:Z:v{i}" for i in range(56))
     text = HEADER + RECORDS[0] + "\t" + aux + "\n" + RECORDS[3] + "\n"
     nat = _write_both(tmp_path, text, {})
-    py = _write_both(tmp_path, text, {"BASAL_TPU_NO_NATIVE": "1"})
+    py = _write_both(tmp_path, text, {"BASAL_NO_NATIVE": "1"})
     assert nat == py
     p = tmp_path / "chk.bam"
     p.write_bytes(nat)
-    from basal_tpu.toolkit.bamio import decode_bam_to_sam
+    from basal_jax.toolkit.bamio import decode_bam_to_sam
     assert "v55" in decode_bam_to_sam(str(p))  # the 56th aux tag survived
 
 
@@ -77,10 +77,10 @@ def test_many_aux_fields_punt(tmp_path):
 def test_decode_roundtrip(tmp_path):
     """Decoding the natively-encoded BAM reproduces the records (RNEXT
     rendered '=' when it equals RNAME, per samtools convention)."""
-    from basal_tpu.toolkit.bamio import decode_bam_to_sam
+    from basal_jax.toolkit.bamio import decode_bam_to_sam
     text = HEADER + "\n".join(RECORDS) + "\n"
     out = tmp_path / "nat.bam"
-    from basal_tpu.toolkit.bamio import BamWriter
+    from basal_jax.toolkit.bamio import BamWriter
     with BamWriter(str(out)) as w:
         w.write(text)
     got = [l for l in decode_bam_to_sam(str(out)).splitlines()
@@ -102,7 +102,7 @@ def test_high_qual_bytes_punt(tmp_path):
     decoders punt and the Python golden handles the file — both the
     toolkit decode and the aligner's BamReader fall back cleanly."""
     import struct as st
-    from basal_tpu.toolkit.bamio import (BamWriter, BgzfWriter,
+    from basal_jax.toolkit.bamio import (BamWriter, BgzfWriter,
                                          decode_bam_to_sam,
                                          encode_bam_record)
     # one normal + one 0xEE-qual record, hand-assembled
@@ -125,8 +125,8 @@ def test_high_qual_bytes_punt(tmp_path):
     assert len(recs) == 2
     assert recs[1].split("\t")[10] == chr(0xEE + 33) * 4  # Python golden
 
-    from basal_tpu.config import AlignParams
-    from basal_tpu.reads.io import BamReader
+    from basal_jax.config import AlignParams
+    from basal_jax.reads.io import BamReader
     rd = BamReader(str(tmp_path / "q.bam"), AlignParams(conversion="C:T"))
     batch = rd.next_batch(10)
     rd.close()

@@ -8,10 +8,10 @@ from conftest import convert_reads, make_fastq, make_ref, random_genome
 
 
 def test_sharded_equals_dense(tmp_path, rng):
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.index.sharded import build_sharded_index
+    from basal_jax.config import AlignParams
+    from basal_jax.index.reference import load_reference
+    from basal_jax.index.seedindex import build_index
+    from basal_jax.index.sharded import build_sharded_index
 
     g = random_genome(rng, 20000)
     make_ref(tmp_path / "ref.fa", [("c1", g[:12000]), ("c2", g[12000:])])
@@ -36,12 +36,12 @@ def test_sharded_equals_dense(tmp_path, rng):
 
 
 def test_sharded_sam_identical(tmp_path, rng):
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.index.sharded import build_sharded_index
-    from basal_tpu.align.pipeline import SingleEndAligner
-    from basal_tpu.reads.io import open_reads
+    from basal_jax.config import AlignParams
+    from basal_jax.index.reference import load_reference
+    from basal_jax.index.seedindex import build_index
+    from basal_jax.index.sharded import build_sharded_index
+    from basal_jax.align.pipeline import SingleEndAligner
+    from basal_jax.reads.io import open_reads
 
     g = random_genome(rng, 10000)
     make_ref(tmp_path / "ref.fa", [("c1", g)])
@@ -65,8 +65,8 @@ def test_kmer_cutoff_dense_matches_sparse():
 
     import numpy as np
 
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.seedindex import _kmer_cutoff, _kmer_cutoff_dense
+    from basal_jax.config import AlignParams
+    from basal_jax.index.seedindex import _kmer_cutoff, _kmer_cutoff_dense
 
     rng = np.random.default_rng(99)
     p0 = AlignParams(conversion="A:G", randseed=1)

@@ -31,7 +31,7 @@ def _stub_dir(tmp_path):
     (sm / "multitest.py").write_text(
         "import sys\n"
         f"sys.path.insert(0, {str(Path(__file__).resolve().parents[1])!r})\n"
-        "from basal_tpu.toolkit.multitest import multipletests as _mp\n"
+        "from basal_jax.toolkit.multitest import multipletests as _mp\n"
         "def multipletests(pvals, alpha=0.05, method='fdr_bh', **k):\n"
         "    r, q = _mp(pvals, alpha, method)\n"
         "    return r, q\n")
@@ -49,7 +49,7 @@ def run_our_kit(args, cwd):
     old = os.getcwd()
     os.chdir(cwd)
     try:
-        from basal_tpu.toolkit.cli import main
+        from basal_jax.toolkit.cli import main
         main(args)
     finally:
         os.chdir(old)
@@ -113,7 +113,7 @@ def test_avgmod_ag_rna(tmp_path, rng):
 
 
 def test_shiftd_rightmost(tmp_path):
-    from basal_tpu.toolkit.shiftd import rightmost_d
+    from basal_jax.toolkit.shiftd import rightmost_d
     # deletion of T inside TTT run: slide right
     #              0123456789
     xr = "ACGTTTTACG"
@@ -132,7 +132,7 @@ def test_fdr_roundtrip(tmp_path):
         mod = int(rng.integers(0, tot + 1))
         rows.append(f"chr1\t{i*10+1}\t+\tACTGA\t{mod/tot:.3f}\t{tot:.2f}\t{mod}\t{tot}")
     tsv.write_text("\n".join(rows) + "\n")
-    from basal_tpu.toolkit.fdr import calc_pval
+    from basal_jax.toolkit.fdr import calc_pval
     calc_pval(str(tsv), None, str(tmp_path / "out"), min_depth=4,
               method="binomial", fdr_method="fdr_bh")
     with gzip.open(tmp_path / "out_FDR.tsv.gz", "rt") as f:
@@ -152,7 +152,7 @@ def test_multitest_vs_scipy_fdr(tmp_path):
     import scipy.stats
     rng = np.random.default_rng(3)
     p = rng.uniform(size=200)
-    from basal_tpu.toolkit.multitest import multipletests
+    from basal_jax.toolkit.multitest import multipletests
     ours = multipletests(p, method="fdr_bh")[1]
     want = scipy.stats.false_discovery_control(p, method="bh")
     assert np.allclose(ours, want)
@@ -170,7 +170,7 @@ def test_regmod(tmp_path):
         "chr1\t50\t+\tC\t1.000\t6.00\t6\t6\n")
     bed = tmp_path / "r.bed"
     bed.write_text("chr1\t5\t20\nchr1\t40\t60\nchr2\t1\t100\n")
-    from basal_tpu.toolkit.regmod import regmod
+    from basal_jax.toolkit.regmod import regmod
     regmod(str(bed), str(tsv), str(tmp_path / "out.tsv"))
     lines = (tmp_path / "out.tsv").read_text().splitlines()
     # region 1: sites at 10(+) and 11(-) merge onto pos 10: (5+1)/(10+4)
@@ -185,8 +185,8 @@ def test_regmod(tmp_path):
 
 def test_mergebam_lift(tmp_path):
     """Transcript->genome liftover: plus and minus strand, junction split."""
-    from basal_tpu.toolkit.bamio import BamWriter, decode_bam_to_sam
-    from basal_tpu.toolkit.mergebam import merge_bam
+    from basal_jax.toolkit.bamio import BamWriter, decode_bam_to_sam
+    from basal_jax.toolkit.mergebam import merge_bam
 
     gtf = tmp_path / "ann.gtf"
     gtf.write_text(

@@ -1,9 +1,9 @@
-"""Allocator/THP tunes must be active after importing basal_tpu.
+"""Allocator/THP tunes must be active after importing basal_jax.
 
 _tune_numpy_thp turns off numpy's MADV_HUGEPAGE-on-large-buffers default
-(on this host the first touch of newly host-backed 2 MiB extents costs
-~44 ms hypervisor-side — a cold 2 Mbp index build measured 8.2 s wall /
-29 s system time before the tune, 0.38 s after; docs/PERF.md).  If
+(on virtualized hosts the first touch of newly host-backed 2 MiB extents
+is slow hypervisor-side, and a cold index build paid it for every table
+page; basal_jax/__init__.py).  If
 numpy's private toggle ever moves, the tune degrades to env-var-only
 silently — this test makes that loud."""
 
@@ -11,7 +11,7 @@ import os
 
 
 def test_numpy_thp_tune_active():
-    import basal_tpu  # noqa: F401  (import side effect applies the tune)
+    import basal_jax  # noqa: F401  (import side effect applies the tune)
 
     assert os.environ.get("NUMPY_MADVISE_HUGEPAGE") == "0"
     try:
@@ -26,19 +26,19 @@ def test_numpy_thp_tune_active():
 
 
 def test_malloc_tune_respects_env(monkeypatch):
-    """BASAL_TPU_NO_MALLOC_TUNE=1 and explicit MALLOC_* env short-circuit
+    """BASAL_NO_MALLOC_TUNE=1 and explicit MALLOC_* env short-circuit
     the mallopt calls (the function must return before touching libc)."""
-    import basal_tpu
+    import basal_jax
 
-    monkeypatch.setenv("BASAL_TPU_NO_MALLOC_TUNE", "1")
-    basal_tpu._tune_malloc()  # must not raise
-    monkeypatch.delenv("BASAL_TPU_NO_MALLOC_TUNE")
+    monkeypatch.setenv("BASAL_NO_MALLOC_TUNE", "1")
+    basal_jax._tune_malloc()  # must not raise
+    monkeypatch.delenv("BASAL_NO_MALLOC_TUNE")
     monkeypatch.setenv("MALLOC_MMAP_THRESHOLD_", "65536")
-    basal_tpu._tune_malloc()  # must not raise
+    basal_jax._tune_malloc()  # must not raise
 
 
 def test_numpy_thp_tune_respects_env(monkeypatch):
-    monkeypatch.setenv("BASAL_TPU_NO_THP_TUNE", "1")
-    import basal_tpu
+    monkeypatch.setenv("BASAL_NO_THP_TUNE", "1")
+    import basal_jax
 
-    basal_tpu._tune_numpy_thp()  # must return without changing numpy state
+    basal_jax._tune_numpy_thp()  # must return without changing numpy state

@@ -8,7 +8,7 @@ import random
 import numpy as np
 import pytest
 
-from basal_tpu.index import reference as R
+from basal_jax.index import reference as R
 
 
 def _py_blocks(seq, count, total_len):
@@ -53,7 +53,7 @@ CASES = [
 
 @pytest.mark.parametrize("case_id", range(len(CASES)))
 def test_unmask_native_matches_python(case_id):
-    from basal_tpu.native import get_lib
+    from basal_jax.native import get_lib
     if get_lib() is None:
         pytest.skip("native engine unavailable")
     s = CASES[case_id]
@@ -66,7 +66,7 @@ def test_unmask_native_matches_python(case_id):
 
 
 def test_unmask_native_fuzz():
-    from basal_tpu.native import get_lib
+    from basal_jax.native import get_lib
     if get_lib() is None:
         pytest.skip("native engine unavailable")
     rng = random.Random(31337)

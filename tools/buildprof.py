@@ -18,7 +18,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-os.environ.setdefault("BASAL_TPU_HOST_EVAL", "1")
+os.environ.setdefault("BASAL_HOST_EVAL", "1")
 
 import jax
 jax.config.update("jax_platforms", "cpu")
@@ -32,12 +32,12 @@ work = ROOT / ".oracle" / "benchdata"
 work.mkdir(parents=True, exist_ok=True)
 ref_fa, reads_fq = bench.make_data(work)
 
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import load_reference
-from basal_tpu.index.seedindex import build_index
-from basal_tpu.reads.io import open_reads
-from basal_tpu.reads.encode import encode_batch
-from basal_tpu.native import NativeBatch, _p, _ncpu
+from basal_jax.config import AlignParams
+from basal_jax.index.reference import load_reference
+from basal_jax.index.seedindex import build_index
+from basal_jax.reads.io import open_reads
+from basal_jax.reads.encode import encode_batch
+from basal_jax.native import NativeBatch, _p, _ncpu
 
 p = AlignParams(conversion="A:G", randseed=1, verbose_level=0)
 ref = load_reference(str(ref_fa), p)
@@ -48,7 +48,7 @@ enc = encode_batch(p, b)
 ridx = enc.reads.indices
 rd.close()
 
-SRC = ROOT / "basal_tpu" / "native" / "engine.cpp"
+SRC = ROOT / "basal_jax" / "native" / "engine.cpp"
 
 
 def build_variant(name, defs):

@@ -10,7 +10,7 @@ interleaved passes, per-config median pair ratio + SAM/BAM equality.
                                     covered by tests/test_multihost.py)
 
 Usage: python tools/configbench.py [n_reads] [genome_bp]
-Runs on jax-cpu (no TPU claim).  Prints one summary line per config.
+Runs on jax-cpu (never touches an accelerator).  Prints one summary line per config.
 """
 import os
 import subprocess
@@ -86,9 +86,9 @@ def write_fq(path, rule, n, mate=0, insmin=150, insmax=400):
 
 
 def run_ours(argv, out):
-    from basal_tpu.cli import main as cli_main
+    from basal_jax.cli import main as cli_main
     old = sys.argv
-    sys.argv = ["basal-tpu"] + argv + ["-o", str(out)]
+    sys.argv = ["basal-jax"] + argv + ["-o", str(out)]
     t0 = time.time()
     try:
         cli_main()
@@ -117,7 +117,7 @@ def _norm(l):
 
 def body(p):
     if str(p).endswith(".bam"):
-        from basal_tpu.toolkit.bamio import decode_bam_to_sam
+        from basal_jax.toolkit.bamio import decode_bam_to_sam
         text = decode_bam_to_sam(str(p))
         return [_norm(l) for l in text.splitlines()
                 if l and not l.startswith("@")]

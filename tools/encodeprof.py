@@ -19,7 +19,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-os.environ.setdefault("BASAL_TPU_HOST_EVAL", "1")
+os.environ.setdefault("BASAL_HOST_EVAL", "1")
 
 import jax
 jax.config.update("jax_platforms", "cpu")
@@ -33,9 +33,9 @@ work = ROOT / ".oracle" / "benchdata"
 work.mkdir(parents=True, exist_ok=True)
 ref_fa, reads_fq = bench.make_data(work)
 
-from basal_tpu.config import AlignParams, REG_ALPHABET
-from basal_tpu.reads.io import open_reads
-from basal_tpu.native import _p, _ncpu
+from basal_jax.config import AlignParams, REG_ALPHABET
+from basal_jax.reads.io import open_reads
+from basal_jax.native import _p, _ncpu
 
 p = AlignParams(conversion="A:G", randseed=1, verbose_level=0)
 rd = open_reads(str(reads_fq), p)
@@ -50,7 +50,7 @@ S = lmax - p.seed_size + 1
 soff = np.ascontiguousarray(rb.seq_off, np.int64)
 rule = p.rule
 
-SRC = ROOT / "basal_tpu" / "native" / "engine.cpp"
+SRC = ROOT / "basal_jax" / "native" / "engine.cpp"
 
 
 def build_variant(name, defs):

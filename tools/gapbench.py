@@ -65,11 +65,11 @@ ours_sam = work / "gap_ours.sam"
 orc_sam = work / "gap_oracle.sam"
 ARGS = ["-M", "T:-", "-g", "3", "-S", "1", "-V", "0"]
 
-from basal_tpu.cli import main as cli_main  # noqa: E402
+from basal_jax.cli import main as cli_main  # noqa: E402
 
 for rep in range(3):
     t0 = time.time()
-    sys.argv = (["basal-tpu", "-d", str(ref_fa), "-a", str(fq),
+    sys.argv = (["basal-jax", "-d", str(ref_fa), "-a", str(fq),
                  "-o", str(ours_sam)] + ARGS)
     cli_main()
     dt = time.time() - t0

@@ -1,5 +1,5 @@
-"""Host-path iteration benchmark (no TPU claim): our pipeline with
-BASAL_TPU_HOST_EVAL=1 on jax-cpu vs the oracle binary, same data as bench.py.
+"""Host-path iteration benchmark (jax on the CPU): our pipeline with
+BASAL_HOST_EVAL=1 on jax-cpu vs the oracle binary, same data as bench.py.
 
 Usage: python tools/hostbench.py [random|repeat] [n_reads]
 Prints per-pass reads/s for ours and the oracle, plus the SAM-equality rate.
@@ -15,7 +15,7 @@ sys.path.insert(0, str(ROOT))
 
 PROFILE = sys.argv[1] if len(sys.argv) > 1 else "random"
 os.environ["BENCH_PROFILE"] = PROFILE
-os.environ.setdefault("BASAL_TPU_HOST_EVAL", "1")
+os.environ.setdefault("BASAL_HOST_EVAL", "1")
 if len(sys.argv) > 2:
     os.environ["BENCH_READS"] = sys.argv[2]
 
@@ -30,11 +30,11 @@ ref_fa, reads_fq = bench.make_data(work)
 N = bench.N_READS
 oracle = bench.ensure_oracle()
 
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import load_reference
-from basal_tpu.index.seedindex import build_index
-from basal_tpu.reads.io import open_reads
-from basal_tpu.align.pipeline import SingleEndAligner
+from basal_jax.config import AlignParams
+from basal_jax.index.reference import load_reference
+from basal_jax.index.seedindex import build_index
+from basal_jax.reads.io import open_reads
+from basal_jax.align.pipeline import SingleEndAligner
 
 p = AlignParams(conversion="A:G", randseed=1, verbose_level=0)
 t0 = time.time()
@@ -70,7 +70,7 @@ for rep in range(3):
           f"{N/dto:.0f} reads/s", file=sys.stderr)
 
 # SAM equality on the last pass
-from basal_tpu.align.sam import sam_header
+from basal_jax.align.sam import sam_header
 ours = (sam_header(ref, p, "hostbench").encode("latin1")
         + b"".join(parts)).decode("latin1")
 ours_recs = [l for l in ours.splitlines() if l and not l.startswith("@")]

@@ -37,9 +37,9 @@ import test_toolkit  # noqa: E402  (stub-dir + runner helpers)
 aln = work / "kitbench_aln.sam"
 if not aln.exists() or aln.stat().st_size < 1000:
     print(f"[kitbench] aligning {N} reads...", file=sys.stderr)
-    from basal_tpu.cli import main as cli_main
+    from basal_jax.cli import main as cli_main
     argv0 = sys.argv
-    sys.argv = ["basal-tpu", "-a", str(reads_fq), "-d", str(ref_fa),
+    sys.argv = ["basal-jax", "-a", str(reads_fq), "-d", str(ref_fa),
                 "-M", "A:G", "-S", "1", "-V", "0", "-u", "-E", str(N),
                 "-o", str(aln)]
     try:

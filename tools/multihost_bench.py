@@ -123,7 +123,7 @@ def main():
                 "reads": str(tmp / "reads.fq"), "n_reads": n_reads,
                 "mesh_check": False, "local_devices": 1}
 
-    # host steal-time storms make single timings swing 2x (see docs/PERF.md);
+    # host steal-time storms make single timings swing widely on shared VMs;
     # measure interleaved (1p, 2p) pairs back-to-back and take the median
     # per-pair efficiency, the same paired methodology bench.py uses
     ncpu = os.cpu_count() or 4
@@ -160,8 +160,8 @@ def main():
         s = sorted(xs)
         return s[len(s) // 2]
 
-    # storm rejection: this guest sees double-digit steal-time storms from
-    # host neighbors (docs/PERF.md); a storm landing inside either side of
+    # storm rejection: shared VMs see steal-time storms from host
+    # neighbours; a storm landing inside either side of
     # a rep makes that rep's ratio meaningless.  Reject reps whose 1-proc
     # align wall deviates >1.5x (either way) from the rep-set median t1 —
     # the 1-proc wall is the storm canary: it runs the identical workload
@@ -203,7 +203,7 @@ def main():
                 "host brings); workers are jax.distributed processes on "
                 "CPU",
         "gt1_note": (
-                "efficiencies above 1.0 are real on this VM: the 1-proc "
+                "efficiencies above 1.0 can be real on a shared VM: the 1-proc "
                 "config mildly oversubscribes 4 cores (4-thread stage "
                 "kernels + tail thread) while 2-proc workers get clean "
                 "cpuset 2-core splits; the protocol tax is now smaller "

@@ -41,7 +41,7 @@ def main():
     if cpus:
         os.sched_setaffinity(0, set(cpus[pid]))
 
-    from basal_tpu.parallel.multihost import (
+    from basal_jax.parallel.multihost import (
         RoutedSeedIndex, init_multihost, make_multihost_mesh, read_window)
     init_multihost(f"localhost:{port}", nprocs, pid,
                    local_devices=cfg.get("local_devices", 2))
@@ -49,8 +49,8 @@ def main():
 
     import numpy as np
 
-    from basal_tpu.align.pipeline import run_single_end
-    from basal_tpu.config import AlignParams
+    from basal_jax.align.pipeline import run_single_end
+    from basal_jax.config import AlignParams
 
     params = AlignParams(**cfg["params"])
     params = dataclasses.replace(params, sam_header=(pid == 0))
@@ -72,15 +72,15 @@ def main():
                                     flush=True))
                if cfg.get("debug") else (lambda *a: None))
         if cfg.get("reads_b"):
-            from basal_tpu.pairs.pipeline import run_pair_end
+            from basal_jax.pairs.pipeline import run_pair_end
             aligner = run_pair_end(
                 wparams, cfg["ref"], cfg["reads"], cfg["reads_b"],
-                out_fh=fh, command_line=cfg.get("cmdline", "basal-tpu"),
+                out_fh=fh, command_line=cfg.get("cmdline", "basal-jax"),
                 index_factory=factory, timings=timings, log=log)
         else:
             aligner = run_single_end(
                 wparams, cfg["ref"], cfg["reads"], out_fh=fh,
-                command_line=cfg.get("cmdline", "basal-tpu"),
+                command_line=cfg.get("cmdline", "basal-jax"),
                 index_factory=factory, timings=timings, log=log)
     idx = holder["idx"]
     idx.drain()
@@ -123,15 +123,15 @@ def _mesh_check(ref, params, cfg):
     local single-device kernel on the same (shared) candidate table."""
     import numpy as np
 
-    from basal_tpu.align.candidates import build_candidates
-    from basal_tpu.align.pipeline import DeviceContext, SingleEndAligner
-    from basal_tpu.align.rng import MyRand
-    from basal_tpu.align.candidates import SeedScheduler
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.parallel.mesh import ShardedDeviceContext
-    from basal_tpu.parallel.multihost import make_multihost_mesh
-    from basal_tpu.reads.encode import encode_batch
-    from basal_tpu.reads.io import open_reads
+    from basal_jax.align.candidates import build_candidates
+    from basal_jax.align.pipeline import DeviceContext, SingleEndAligner
+    from basal_jax.align.rng import MyRand
+    from basal_jax.align.candidates import SeedScheduler
+    from basal_jax.index.seedindex import build_index
+    from basal_jax.parallel.mesh import ShardedDeviceContext
+    from basal_jax.parallel.multihost import make_multihost_mesh
+    from basal_jax.reads.encode import encode_batch
+    from basal_jax.reads.io import open_reads
 
     # every process uses the SAME reads and a locally built dense index so
     # the candidate table is identical everywhere (the routed index was

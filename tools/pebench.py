@@ -1,10 +1,10 @@
-"""Paired-end benchmark (no TPU claim): our PE pipeline on jax-cpu vs the
+"""Paired-end benchmark (jax on the CPU): our PE pipeline on jax-cpu vs the
 oracle binary, whole-run wall on the same data.
 
 Usage: python tools/pebench.py [random|repeat] [n_pairs]
 Prints per-pass wall/pairs-per-second for ours and the oracle, plus the
-SAM-equality rate.  The repeat profile reproduces the measurement in
-docs/PERF.md (reference: 6.1s / 20k pairs whole-run on 50 Mbp).
+SAM-equality rate.  The repeat profile is bench.py's 50 Mbp repeat
+genome.
 """
 import os
 import subprocess
@@ -18,7 +18,7 @@ sys.path.insert(0, str(ROOT))
 PROFILE = sys.argv[1] if len(sys.argv) > 1 else "repeat"
 N_PAIRS = int(sys.argv[2]) if len(sys.argv) > 2 else 20_000
 os.environ["BENCH_PROFILE"] = PROFILE
-os.environ.setdefault("BASAL_TPU_HOST_EVAL", "1")
+os.environ.setdefault("BASAL_HOST_EVAL", "1")
 
 import jax  # noqa: E402
 
@@ -67,11 +67,11 @@ ours_sam = work / "pe_ours.sam"
 orc_sam = work / "pe_oracle.sam"
 ARGS = ["-M", "A:G", "-S", "1", "-V", "0"]
 
-from basal_tpu.cli import main as cli_main  # noqa: E402
+from basal_jax.cli import main as cli_main  # noqa: E402
 
 for rep in range(3):
     t0 = time.time()
-    sys.argv = (["basal-tpu", "-d", str(ref_fa), "-a", str(fq_a),
+    sys.argv = (["basal-jax", "-d", str(ref_fa), "-a", str(fq_a),
                  "-b", str(fq_b), "-o", str(ours_sam)] + ARGS)
     cli_main()
     dt = time.time() - t0

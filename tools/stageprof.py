@@ -1,5 +1,5 @@
 """Per-stage host-path profiler: times encode / build_groups / fill_eval /
-replay / format separately over the bench dataset (BASAL_TPU_HOST_EVAL=1,
+replay / format separately over the bench dataset (BASAL_HOST_EVAL=1,
 jax-cpu).  Numbers in us/read; run twice in-process for warm numbers.
 
 Usage: python tools/stageprof.py [n_reads] [batch]
@@ -11,7 +11,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-os.environ.setdefault("BASAL_TPU_HOST_EVAL", "1")
+os.environ.setdefault("BASAL_HOST_EVAL", "1")
 
 import jax
 jax.config.update("jax_platforms", "cpu")
@@ -26,12 +26,12 @@ work = ROOT / ".oracle" / "benchdata"
 work.mkdir(parents=True, exist_ok=True)
 ref_fa, reads_fq = bench.make_data(work)
 
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import load_reference
-from basal_tpu.index.seedindex import build_index
-from basal_tpu.reads.io import open_reads, RawBatch
-from basal_tpu.align.pipeline import SingleEndAligner
-from basal_tpu.reads.encode import encode_batch
+from basal_jax.config import AlignParams
+from basal_jax.index.reference import load_reference
+from basal_jax.index.seedindex import build_index
+from basal_jax.reads.io import open_reads, RawBatch
+from basal_jax.align.pipeline import SingleEndAligner
+from basal_jax.reads.encode import encode_batch
 
 p = AlignParams(conversion="A:G", randseed=1, verbose_level=0)
 ref = load_reference(str(ref_fa), p)
